@@ -1,8 +1,9 @@
 """
-dynamite_tpu — a TPU-native framework for large-scale quantum many-body spin
-dynamics, with the capabilities of GregDMeyer/dynamite (symbolic Pauli-string
-Hamiltonians, Krylov time evolution, Lanczos eigensolving, symmetry
-subspaces, distributed state vectors) built from scratch on JAX/XLA/Pallas.
+dynamite_tpu — a JAX framework for large-scale quantum many-body spin
+dynamics on GPUs, with the capabilities of GregDMeyer/dynamite (symbolic
+Pauli-string Hamiltonians, Krylov time evolution, Lanczos eigensolving,
+symmetry subspaces, distributed state vectors) built from scratch on
+JAX/XLA.
 
 The public API mirrors the reference package layout:
 
@@ -33,12 +34,6 @@ class _Config:
         self._precision = None
         self._mesh = None
         self._requested_platform = None
-        # the hand-written Pallas TPU kernel for the hot matvec; auto-gated
-        # on backend=='tpu' and single precision, this flag force-disables it
-        self.use_pallas = True
-        # raise (instead of warn + fall back to the XLA engine) if a Pallas
-        # kernel build fails where it should have succeeded
-        self.require_pallas = False
         # the precomputed-table ELL engine for general subspace pairs
         # (ops/ell.py); within this device-memory budget it replaces the
         # on-the-fly term sweep, which recomputes subspace rankings every
@@ -63,24 +58,32 @@ class _Config:
         Parameters
         ----------
         precision : str, optional
-            'single' (float32 pairs, TPU-fast) or 'double' (float64 pairs,
-            emulated on TPU but matches the reference's tolerances).
-            Defaults to 'double'.
+            'single' (float32 pairs, the fast path) or 'double' (float64
+            pairs, matching the reference's tolerances). Defaults to
+            'double'.
 
         platform : str, optional
-            Force a JAX platform ('tpu', 'cpu'). Defaults to JAX's choice.
+            Force a JAX platform ('gpu', 'cpu'). Defaults to JAX's choice.
 
         mesh_shape : tuple, optional
             Shape of the device mesh used for state sharding. Defaults to a
             1-D mesh over all addressable devices.
 
-        slepc_args, version_check, gpu :
+        gpu : bool, optional
+            Select the GPU platform (as ``platform='gpu'``); raises
+            RuntimeError when JAX finds no GPU.
+
+        slepc_args, version_check :
             Accepted for call-compatibility with the reference; ignored
-            (there is no PETSc/SLEPc here, and TPUs are selected via
-            ``platform``).
+            (there is no PETSc/SLEPc here).
         """
         if self.initialized:
             raise RuntimeError('config.initialize() can only be called once.')
+        if gpu:
+            if platform not in (None, 'gpu'):
+                raise ValueError(f'gpu=True conflicts with platform='
+                                 f'{platform!r}')
+            platform = 'gpu'
         self._initialize(precision=precision, platform=platform,
                          mesh_shape=mesh_shape)
 
@@ -91,7 +94,16 @@ class _Config:
         import jax
 
         if platform is not None:
+            # JAX expands 'gpu' to every GPU platform and fails when any
+            # one of them is missing; the supported GPUs are CUDA cards
+            platform = {'gpu': 'cuda'}.get(platform, platform)
             jax.config.update('jax_platforms', platform)
+            try:
+                jax.devices(platform)
+            # JAX asserts instead of raising when no backend is left at all
+            except (RuntimeError, AssertionError) as e:
+                raise RuntimeError(
+                    f'JAX finds no {platform!r} device: {e}') from e
 
         if precision is None:
             precision = self._precision or 'double'
@@ -100,9 +112,9 @@ class _Config:
         self._precision = precision
 
         # 64-bit device types are needed for the double-precision path and
-        # for int64 state indices when L > 31 — but x64 mode breaks the
-        # Pallas grid lowering on TPU, so single precision (the TPU
-        # production mode, L <= 31) leaves it off.
+        # for int64 state indices when L > 31. x64 is process-global and
+        # widens every default dtype, so single precision (L <= 31) leaves
+        # it off; giving the index width its own switch is an open item.
         jax.config.update('jax_enable_x64', precision == 'double')
 
         from .parallel.mesh import make_mesh
@@ -123,7 +135,7 @@ class _Config:
 
     @property
     def shell(self):
-        """Kept for API parity with the reference. On TPU every operator is
+        """Kept for API parity with the reference. Every operator is
         matrix-free ('shell'); setting this to False only enables a cached
         scipy CSR debugging path for small problems."""
         return self._shell
@@ -168,8 +180,9 @@ class _Config:
 
     @property
     def gpu(self):
-        """API parity with the reference; always False on TPU builds."""
-        return False
+        """Whether JAX's default backend is the GPU."""
+        import jax
+        return jax.default_backend() == 'gpu'
 
     # dtype policy ---------------------------------------------------------
 

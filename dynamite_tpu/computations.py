@@ -377,16 +377,9 @@ def _rayleigh_ritz_extract(H, states, target, nev, getvecs):
         W = jnp.stack(ws)
 
         def gram(X, Y):
-            if X.dtype == jnp.float64:
-                # emulated f64 dot_general degrades with contraction
-                # length on TPU (see solvers/krylov._basis_dots); the
-                # fused multiply+reduce stays at ~1e-14
-                G = jnp.sum(X[:, :, None, None, :] * Y[None, None, :, :, :],
-                            axis=-1)
-            else:
-                from jax import lax
-                G = jnp.einsum('kpd,lqd->kplq', X, Y,
-                               precision=lax.Precision.HIGHEST)
+            from jax import lax
+            G = jnp.einsum('kpd,lqd->kplq', X, Y,
+                           precision=lax.Precision.HIGHEST)
             return (G[:, 0, :, 0] + G[:, 1, :, 1],
                     G[:, 0, :, 1] - G[:, 1, :, 0])
         return gram(V, W), gram(V, V)
@@ -431,9 +424,9 @@ def reduced_density_matrix(state, keep):
     list of spin indices); returns the 2**len(keep) density matrix as a
     host numpy array.
 
-    TPU-native formulation: the state, viewed as a [2]*L tensor, is
-    transposed so the kept spins lead, reshaped to (2^k, 2^(L-k)), and
-    contracted rho = V V^dagger — one MXU matmul instead of the reference's
+    The state, viewed as a [2]*L tensor, is transposed so the kept spins
+    lead, reshaped to (2^k, 2^(L-k)), and contracted rho = V V^dagger — one
+    matmul instead of the reference's
     gather-to-rank-0 outer-product loop (bpetsc_template_1.c:87-165, a
     known scalability bottleneck acknowledged in docs/FAQ.rst:35).
     """

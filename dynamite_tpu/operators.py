@@ -156,7 +156,7 @@ class Operator:
 
     @property
     def shell(self):
-        """API parity flag: on TPU all operators are matrix-free (shell)."""
+        """API parity flag: every operator is matrix-free (shell)."""
         return self._shell
 
     @shell.setter
@@ -507,12 +507,13 @@ class Operator:
         Counts the MSC metadata, any Explicit subspace tables, and the
         tables of whichever apply engine the dispatch would build:
 
-        * sector MXU engine (SpinConserve pairs): the per-sector matrices
+        * sector engine (SpinConserve pairs): the per-sector matrices
           plus the diagonal stream — replicated on every device;
         * ELL gather engine (Explicit/Auto/projections, many-mask
           operators): column/coefficient tables — sharded over the mesh;
-        * Pallas XOR kernel (Full/Parity): the precomputed diagonal
-          stream — sharded.
+        * GPU XOR kernel (Full/Parity, few masks, f32 on the GPU): the
+          precomputed diagonal stream — sharded; the XLA sweep has no
+          tables.
 
         With ``ncv`` given, also counts the Krylov solver workspace: the
         (ncv+1, 2, dim) basis the Lanczos/Arnoldi iteration keeps resident
@@ -561,14 +562,10 @@ class Operator:
         cb = np.dtype(config.real_dtype).itemsize
 
         if plan.xor_mode and not plan.use_scan:
-            # Pallas / XLA XOR engines: the only table is the precomputed
-            # diagonal stream (sharded), when there are >= the threshold
-            # diagonal terms
-            n_diag = sum(len(g[2]) for g in plan.groups if g[1] == 0)
-            from .ops.pallas_apply import DIAG_PRECOMPUTE_MIN_TERMS
-            if n_diag >= DIAG_PRECOMPUTE_MIN_TERMS:
-                return plan.dim_left * cb * 2
-            return 0
+            # the GPU kernel's f32 diagonal stream (sharded); the XLA sweep
+            # computes its signs on the fly
+            from .ops.apply import _xor_kernel_wanted
+            return plan.dim_left * 4 * 2 if _xor_kernel_wanted(plan) else 0
         if sector_supported(plan, left, right):
             est = table_bytes_estimate(plan, left, right)
             if est <= ell_mod.ell_budget():

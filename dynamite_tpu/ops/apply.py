@@ -17,7 +17,7 @@ Fast path: when both subspaces are Full (or both Parity in the same sector),
 col(bra) == row ^ m' for a reduced mask m', a pure XOR permutation — lowered
 as two small constant-index takes over a blocked view (see xor_permute), and
 in the distributed case as a pairwise lax.ppermute over the mesh axis for
-the high (device) bits, the TPU analog of the reference's
+the high (device) bits, the analog of the reference's
 rank = high-bits trick (bpetsc_template_2.c:781-783).
 
 Scan path: operators with many mask groups (e.g. SYK) compile to a
@@ -45,31 +45,24 @@ UNROLL_GROUP_LIMIT = 128
 # and with more total terms than this
 UNROLL_TERM_LIMIT = 512
 # states larger than this are processed in chunks of this size (an outer
-# lax.scan): XLA fuses the whole group sweep within a chunk-sized body but
-# falls off a fusion cliff on full-size buffers (measured 130x at L=24)
-CHUNK_BITS = 20
+# lax.scan), which bounds the sweep's temporaries: XLA materializes about
+# eleven state-sized buffers for a whole-state sweep (1.5 GB at 2**24
+# rows). On an H100 the whole-state sweep at 2**24 rows ran 4.0 ms against
+# 5.2 ms chunked at 2**20 (PERF.md), so chunking starts above 2**24
+CHUNK_BITS = 24
 # gathered-input size above which the sharded general path switches from
 # all_gather to the memory-scaling ring exchange (per-device bytes)
 RING_GENERAL_BYTES = 1 << 31
-# block size for the production Pallas kernel: measured on TPU v5e at L=24
-# (MBL): 2**16 -> 3.79 ms/apply vs 5.73 ms at 2**13 — bigger blocks mean
-# fewer distinct block-level mask offsets ("runs"), i.e. less HBM traffic,
-# and 512 KB DMAs amortize the per-transfer latency that dominates smaller
-# blocks (a pure 64 KB-block copy sustains only ~140 GB/s on this chip)
-PALLAS_BLOCK_BITS = 16
 
 
-def _pallas_eligible():
-    """The Pallas fast path runs on real TPU backends only (tests exercise
-    it separately in interpret mode)."""
+def _xor_kernel_wanted(plan, device_bits=0):
+    """Whether the hand-written GPU kernel (ops/xor_triton.py) serves
+    this plan: f32 XOR pairs on the GPU. It has no CPU form outside the
+    Pallas interpreter, which the tests drive directly."""
     from .. import config
-    if not getattr(config, 'use_pallas', True):
-        return False
-    import jax
-    try:
-        return jax.default_backend() == 'tpu'
-    except Exception:
-        return False
+    from . import xor_triton
+    return (config.precision == 'single' and jax.default_backend() == 'gpu'
+            and xor_triton.supported(plan, device_bits))
 
 
 def _is_xor_pair(left, right):
@@ -180,12 +173,12 @@ def xor_permute(x, mask, nbits):
 
     Lowered as (at most) two jnp.take ops with small constant index vectors
     over a rank-3 view — block-level for the mask's high bits, lane-level
-    for its low bits. Measured on TPU this both compiles ~100x faster and
-    runs ~2x faster than flip/reverse-based lowerings of the same
-    permutation (XLA fuses the takes across mask groups into a single
-    sweep), and the reference's 'iterate_max = 1 << ctz(mask)' contiguity
-    insight (bpetsc_template_2.c:610-631) is subsumed: contiguous runs stay
-    contiguous inside the blocks.
+    for its low bits. A flip/reverse lowering of the same permutation over
+    a rank-L view is far slower to compile, and the reference's
+    'iterate_max = 1 << ctz(mask)' contiguity insight
+    (bpetsc_template_2.c:610-631) is subsumed: contiguous runs stay
+    contiguous inside the blocks. On the GPU, XLA writes a permuted copy of
+    x per take; the f32 GPU kernel (ops/xor_triton.py) avoids that.
     """
     if mask == 0:
         return x
@@ -206,14 +199,6 @@ def xor_permute(x, mask, nbits):
     return v.reshape(lead + (dim,))
 
 
-def _iota(n, dtype):
-    """Row-index iota, wrapped in an optimization barrier: without it XLA
-    constant-folds the entire (iota-derived) Walsh-sign computation at
-    compile time — dim x nterms integer ops on the compiler thread, which
-    hangs compilation for L >= 20."""
-    return lax.optimization_barrier(lax.broadcasted_iota(dtype, (n,), 0))
-
-
 class OperatorKernel:
     """A compiled matrix-free matvec y = A @ x for one subspace pair.
 
@@ -227,15 +212,18 @@ class OperatorKernel:
         self.left = left
         self.right = right
         self.mesh = mesh
-        self.pallas_plan = None  # set when the Pallas fast path is built
-        self.sector_plan = None  # set when the sector MXU engine is built
+        # names of the engines that serve the local and the sharded apply,
+        # set when each is built
+        self.engine = None
+        self.sharded_engine = None
+        self.sector_plan = None  # set when the sector engine is built
         self.xor_dense_info = None  # set when the XOR-dense engine is built
         # conservation flag computed as a byproduct of the ELL table build
         # (None when the engine in use has no cheap byproduct)
         self.conserves_hint = None
         # engines build lazily on first use: the ELL engine materializes
-        # device tables at build time, which a purely-sharded usage (pods)
-        # should never pay at full (unsharded) size
+        # device tables at build time, which a purely-sharded usage should
+        # never pay at full (unsharded) size
         self._local_callable = None
         self._local_fn = None
         self._sharded_callable = None
@@ -340,27 +328,34 @@ class OperatorKernel:
 
     def _build_local(self):
         plan = self.plan
-        fn = self._try_pallas()
-        if fn is not None:
-            return fn
-        fn = self._try_sector_local()
-        if fn is not None:
-            return fn
-        fn = self._try_xor_dense_local()
-        if fn is not None:
-            return fn
-        fn = self._try_ell_local()
-        if fn is not None:
-            return fn
+        if _xor_kernel_wanted(plan):
+            from .xor_triton import build_xor_kernel
+            self.engine = 'xor_triton'
+            return build_xor_kernel(plan, self.left, self.right)
+        for name, build in (('sector', self._try_sector_local),
+                            ('xor_dense', self._try_xor_dense_local),
+                            ('ell', self._try_ell_local)):
+            fn = build()
+            if fn is not None:
+                self.engine = name
+                return fn
+        self.engine, fn = self.sweep_callable()
+        return fn
+
+    def sweep_callable(self):
+        """(name, traceable) of the on-the-fly XLA term sweep: the engine
+        of last resort for every pair, and on the GPU the plain reference
+        the XOR kernel is compared with."""
+        plan = self.plan
         if plan.use_scan:
-            return self._build_local_scan()
+            return 'sweep_scan', self._build_local_scan()
         if plan.dim_left > (1 << CHUNK_BITS):
-            return self._build_local_chunked()
+            return 'sweep_chunked', self._build_local_chunked()
 
         def apply_fn(x):
             dtype = x.dtype
             idt = plan.int_dtype
-            rows = _iota(plan.dim_left, idt)
+            rows = lax.broadcasted_iota(idt, (plan.dim_left,), 0)
             row_states = plan.row_states(rows)
             y = (jnp.zeros(plan.dim_left, dtype),
                  jnp.zeros(plan.dim_left, dtype))
@@ -386,52 +381,10 @@ class OperatorKernel:
 
             return jnp.stack(y)
 
-        return apply_fn
-
-    def _try_pallas(self):
-        """The hand-written Pallas TPU kernel (pallas_apply.py) when the plan
-        supports it; the XLA engine remains the general/fallback path.
-
-        The configured block size is an upper bound: PallasXorPlan's VMEM
-        budget can lower it, and a failed build retries at smaller blocks
-        before falling back to XLA."""
-        from .. import config
-        if config.precision != 'single':
-            return None
-        if not _pallas_eligible():
-            return None
-        from .pallas_apply import build_pallas_apply, MIN_BLOCK_BITS
-        bb = min(PALLAS_BLOCK_BITS, self.plan.dim_right.bit_length() - 1)
-        last_err = None
-        while bb >= MIN_BLOCK_BITS:
-            try:
-                fn = build_pallas_apply(self.plan, self.left, self.right,
-                                        block_bits=bb)
-                if fn is not None:
-                    self.pallas_plan = getattr(fn, 'pallas_plan', None)
-                return fn
-            except Exception as e:
-                last_err = e
-                built = getattr(e, 'pallas_block_bits', bb)
-                bb = min(bb, built) - 2  # retry at a smaller block
-        if last_err is None:
-            # the loop never ran (dim below the minimum block size):
-            # not a kernel failure, just ineligible — fall through quietly
-            return None
-        # a failed kernel build must not silently demote production to
-        # the (slower) XLA engine: surface it, and raise when the user
-        # demands the fast path
-        if getattr(config, 'require_pallas', False):
-            raise last_err
-        import warnings
-        warnings.warn('Pallas kernel build failed at every block size; '
-                      'falling back to the XLA apply engine (set '
-                      f'config.require_pallas to raise instead): '
-                      f'{last_err!r}', RuntimeWarning, stacklevel=2)
-        return None
+        return 'sweep', apply_fn
 
     def _try_sector_local(self):
-        """The sector-blocked MXU engine (ops/sector_apply.py) for square
+        """The sector-blocked matmul engine (ops/sector_apply.py) for square
         SpinConserve pairs (plain or XParity-wrapped): the basis ordering
         makes every symmetry sector a contiguous matrix block and the
         matvec a handful of dense matmuls per sector."""
@@ -448,7 +401,7 @@ class OperatorKernel:
     def _try_xor_dense_local(self):
         """The XOR-blocked dense-matmul engine (ops/xor_dense.py) for
         many-mask XOR-mode operators (SYK): terms merge into per-high-mask
-        channel matrices and the apply is a lax.scan of MXU matmuls."""
+        channel matrices and the apply is a lax.scan of dense matmuls."""
         from .xor_dense import build_xor_dense
         fn, info = build_xor_dense(self.plan, self.left, self.right)
         if fn is None:
@@ -486,11 +439,11 @@ class OperatorKernel:
 
     def _build_local_chunked(self):
         """Row-chunked sweep: an outer lax.scan over output chunks whose
-        body is the full (unrolled) group sweep on one chunk. XLA fuses the
-        whole sweep within the chunk-sized body; on full-size buffers it
-        falls off a fusion cliff (measured 130x slower at L=24)."""
+        body is the full (unrolled) group sweep on one chunk, so the
+        sweep's temporaries stay chunk-sized."""
         plan = self.plan
-        C = 1 << CHUNK_BITS
+        bits = CHUNK_BITS
+        C = 1 << bits
         n_chunks = -(-plan.dim_left // C)
         padded = n_chunks * C
         needs_pad = padded != plan.dim_left
@@ -501,7 +454,7 @@ class OperatorKernel:
 
             def body(c, _):
                 base = (c * C).astype(idt)
-                rows = _iota(C, idt) + base
+                rows = lax.broadcasted_iota(idt, (C,), 0) + base
                 if needs_pad:
                     in_range = rows < plan.dim_left
                     rows = jnp.minimum(rows, plan.dim_left - 1)
@@ -516,11 +469,10 @@ class OperatorKernel:
                     if plan.xor_mode:
                         # source chunk for this output chunk, then the
                         # in-chunk permutation
-                        m_chunk = perm_mask >> CHUNK_BITS
+                        m_chunk = perm_mask >> bits
                         src = lax.dynamic_slice(
                             x, (0, (c ^ m_chunk) * C), (2, C))
-                        xp = xor_permute(src, perm_mask & (C - 1),
-                                         CHUNK_BITS)
+                        xp = xor_permute(src, perm_mask & (C - 1), bits)
                     else:
                         col, valid = plan.right_map.s2i(bra)
                         col = jnp.where(valid, col, 0)
@@ -558,7 +510,7 @@ class OperatorKernel:
         def apply_fn(x):
             dtype = x.dtype
             idt = plan.int_dtype
-            rows = _iota(plan.dim_left, idt)
+            rows = lax.broadcasted_iota(idt, (plan.dim_left,), 0)
             row_states = plan.row_states(rows)
             y0 = jnp.zeros((2, plan.dim_left), dtype)
 
@@ -574,8 +526,8 @@ class OperatorKernel:
                 # zero-padded coefficients contribute nothing
                 w = (1 - 2 * parity_j(bra[:, None] & signs[None, :])
                      ).astype(dtype)
-                fr = w @ cr
-                fi = w @ ci
+                fr = jnp.dot(w, cr, precision=lax.Precision.HIGHEST)
+                fi = jnp.dot(w, ci, precision=lax.Precision.HIGHEST)
 
                 col, valid = plan.right_map.s2i(bra)
                 col = jnp.where(valid, col, 0)
@@ -598,12 +550,15 @@ class OperatorKernel:
     def _build_sharded_callable(self):
         if not self._xor_sharded_eligible:
             return self._build_sharded_general()
-        fn = self._try_pallas_sharded()
-        if fn is not None:
-            return fn
         plan = self.plan
         mesh = self.mesh
         nd = mesh.devices.size
+        if _xor_kernel_wanted(plan, nd.bit_length() - 1):
+            from .xor_triton import build_xor_kernel_sharded
+            self.sharded_engine = 'xor_triton_ppermute'
+            return build_xor_kernel_sharded(plan, self.left, self.right,
+                                            mesh)
+        self.sharded_engine = 'xor_ppermute'
         local_dim = plan.dim_right // nd
         local_bits = local_dim.bit_length() - 1
         axis = mesh.axis_names[0]
@@ -620,7 +575,7 @@ class OperatorKernel:
             dtype = x_local.dtype
             idt = plan.int_dtype
             me = lax.axis_index(axis).astype(idt)
-            j = _iota(local_dim, idt)
+            j = lax.broadcasted_iota(idt, (local_dim,), 0)
             rows = (me << local_bits) | j
             row_states = plan.row_states(rows)
 
@@ -649,7 +604,7 @@ class OperatorKernel:
     def _build_sharded_general(self):
         """Distributed matvec for arbitrary subspace pairs (SpinConserve,
         Explicit, Auto, projections): the sharded input is all-gathered over
-        ICI, then each device sweeps only its owned output rows.
+        the mesh, then each device sweeps only its owned output rows.
 
         This is the analog of the reference's multi-GPU path
         (VecScatterCreateToAll + grid-stride row kernel,
@@ -678,21 +633,25 @@ class OperatorKernel:
         from . import ell
         if (ell.ell_enabled() and plan.groups
                 and ell.table_bytes(plan, sdim_left) <= ell.ell_budget()):
+            self.sharded_engine = 'ell_all_gather'
             return self._build_sharded_ell(sdim_left, local_left)
 
         if plan.use_scan:
             chunked = _chunked_arrays(plan.groups)
             if self._ring_general_wanted():
+                self.sharded_engine = 'sweep_ring'
                 return self._build_sharded_ring_general(
                     sdim_left, local_left, chunked)
         else:
             chunked = None
+        self.sharded_engine = 'sweep_all_gather'
 
         def local_fn(x_local):
             dtype = x_local.dtype
             idt = plan.int_dtype
             me = lax.axis_index(axis).astype(idt)
-            rows = _iota(local_left, idt) + me * jnp.asarray(local_left, idt)
+            rows = (lax.broadcasted_iota(idt, (local_left,), 0)
+                    + me * jnp.asarray(local_left, idt))
             if has_pad:
                 valid_row = (rows < plan.dim_left).astype(dtype)
                 rows = jnp.minimum(rows, plan.dim_left - 1)
@@ -709,18 +668,15 @@ class OperatorKernel:
                 # the scan carry becomes device-varying on the first step
                 # (rows depend on axis_index); mark the initial zeros to
                 # match
-                if hasattr(lax, 'pcast'):
-                    y0 = lax.pcast(y0, (axis,), to='varying')
-                elif hasattr(lax, 'pvary'):
-                    y0 = lax.pvary(y0, (axis,))
+                y0 = lax.pcast(y0, (axis,), to='varying')
 
                 def step(y, args):
                     m, signs, cr, ci = args
                     bra = row_states ^ m
                     w = (1 - 2 * parity_j(bra[:, None] & signs[None, :])
                          ).astype(dtype)
-                    fr = w @ cr
-                    fi = w @ ci
+                    fr = jnp.dot(w, cr, precision=lax.Precision.HIGHEST)
+                    fi = jnp.dot(w, ci, precision=lax.Precision.HIGHEST)
                     col, valid = plan.right_map.s2i(bra)
                     col = jnp.where(valid, col, 0)
                     xp = x[:, col]
@@ -797,8 +753,8 @@ class OperatorKernel:
             dtype = x_local.dtype
             idt = plan.int_dtype
             me = lax.axis_index(axis).astype(idt)
-            rows = _iota(local_left, idt) + me * jnp.asarray(local_left,
-                                                            idt)
+            rows = (lax.broadcasted_iota(idt, (local_left,), 0)
+                    + me * jnp.asarray(local_left, idt))
             if has_pad:
                 valid_row = (rows < plan.dim_left).astype(dtype)
                 rows = jnp.minimum(rows, plan.dim_left - 1)
@@ -809,10 +765,7 @@ class OperatorKernel:
             cr_d = jnp.asarray(cr_c, dtype)
             ci_d = jnp.asarray(ci_c, dtype)
             y0 = jnp.zeros((2, local_left), dtype)
-            if hasattr(lax, 'pcast'):
-                y0 = lax.pcast(y0, (axis,), to='varying')
-            elif hasattr(lax, 'pvary'):
-                y0 = lax.pvary(y0, (axis,))
+            y0 = lax.pcast(y0, (axis,), to='varying')
 
             def ring_step(r, carry):
                 block, y = carry
@@ -824,8 +777,8 @@ class OperatorKernel:
                     bra = row_states ^ m
                     w = (1 - 2 * parity_j(bra[:, None] & signs[None, :])
                          ).astype(dtype)
-                    fr = w @ cr
-                    fi = w @ ci
+                    fr = jnp.dot(w, cr, precision=lax.Precision.HIGHEST)
+                    fi = jnp.dot(w, ci, precision=lax.Precision.HIGHEST)
                     col, valid = plan.right_map.s2i(bra)
                     in_blk = valid & (col >= base) \
                         & (col < base + local_right)
@@ -852,7 +805,7 @@ class OperatorKernel:
                              out_specs=P(None, axis))
 
     def _try_sector_sharded(self, sdim_left):
-        """The sector MXU engine on the mesh.
+        """The sector engine on the mesh.
 
         Default: the explicit shard_map ring program (ops/sector_shard.py)
         whose per-device peak memory is O(dim/n_devices + one exchange
@@ -872,6 +825,7 @@ class OperatorKernel:
             if fn is not None:
                 self.conserves_hint = sp.conserved
                 self.sector_plan = sp
+                self.sharded_engine = 'sector_ring'
                 return fn
             return None
 
@@ -882,6 +836,7 @@ class OperatorKernel:
             return None
         self.conserves_hint = sp.conserved
         self.sector_plan = sp
+        self.sharded_engine = 'sector_gspmd'
         mesh = self.mesh
         axis = mesh.axis_names[0]
         spec = NamedSharding(mesh, P(None, axis))
@@ -894,96 +849,9 @@ class OperatorKernel:
 
         return wrapped
 
-    def _try_pallas_sharded(self, interpret=False):
-        """The Pallas hot kernel on each device's local block inside
-        shard_map (XOR pairs, f32, power-of-two meshes): the ppermute
-        schedule of the XLA path stays, only the local sweep changes
-        (reference bar: the distributed fast matvec,
-        bpetsc_template_2.c:713-889)."""
-        from .. import config
-        if config.precision != 'single':
-            return None
-        if not (interpret or _pallas_eligible()):
-            return None
-        from .pallas_apply import build_pallas_sharded_parts, MIN_BLOCK_BITS
-        nd = self.mesh.devices.size
-        device_bits = nd.bit_length() - 1
-        bb = min(PALLAS_BLOCK_BITS,
-                 (self.plan.dim_right.bit_length() - 1) - device_bits)
-        last_err = None
-        while bb >= MIN_BLOCK_BITS:
-            try:
-                parts = build_pallas_sharded_parts(
-                    self.plan, self.left, self.right, device_bits,
-                    block_bits=bb, interpret=interpret)
-                if parts is None:
-                    return None
-                return self._wrap_sharded_pallas(parts)
-            except Exception as e:
-                last_err = e
-                bb -= 2
-        if last_err is None:
-            return None  # local block below the minimum: ineligible
-        if getattr(config, 'require_pallas', False):
-            raise last_err
-        import warnings
-        warnings.warn('sharded Pallas kernel build failed; falling back to '
-                      'the XLA sharded engine (set config.require_pallas '
-                      f'to raise instead): {last_err!r}', RuntimeWarning,
-                      stacklevel=2)
-        return None
-
-    def _wrap_sharded_pallas(self, parts):
-        from .index_maps import parity_j as _pj
-        p = parts['plan']
-        call_fn = parts['call_fn']
-        diag = parts['diag']
-        mesh = self.mesh
-        nd = mesh.devices.size
-        axis = mesh.axis_names[0]
-        local_dim = p.local_dim
-        rows_loc = local_dim >> 7
-        hi_list = p.hi_list
-        dev_masks = p.dev_masks
-        self.pallas_plan = p
-
-        def local_fn(x_local, *diag_args):
-            xv = x_local.reshape(2, rows_loc, 128)
-            srcs = {}
-            for m_hi in hi_list:
-                if m_hi == 0:
-                    srcs[0] = xv
-                else:
-                    # pairwise exchange: device me swaps its block with
-                    # me ^ m_hi over ICI
-                    srcs[m_hi] = lax.ppermute(
-                        xv, axis, [(i, i ^ m_hi) for i in range(nd)])
-            wd = None
-            if dev_masks:
-                me = lax.axis_index(axis).astype(jnp.int32)
-                wd = jnp.stack([
-                    (1 - 2 * _pj(me & jnp.asarray(m, jnp.int32))
-                     ).astype(jnp.float32)
-                    for m in dev_masks])
-            d = diag_args[0] if diag_args else None
-            y = call_fn(srcs, d, wd)
-            return y.reshape(2, local_dim)
-
-        # check_vma=False: pallas_call inside shard_map would need varying-
-        # axis annotations on its out_shape, which the single-chip builder
-        # shares; the wrapper's specs already pin the sharding
-        if diag is not None:
-            mapped = jax.shard_map(
-                local_fn, mesh=mesh,
-                in_specs=(P(None, axis), P(None, axis, None)),
-                out_specs=P(None, axis), check_vma=False)
-            return lambda x: mapped(x, diag)
-        return jax.shard_map(local_fn, mesh=mesh, in_specs=P(None, axis),
-                             out_specs=P(None, axis), check_vma=False)
-
     def _build_sharded_ell(self, sdim_left, local_left):
         """Distributed ELL apply: tables sharded over the owned output rows,
-        input all-gathered over ICI (see ops/ell.py)."""
+        input all-gathered over the mesh (see ops/ell.py)."""
         from . import ell
         from .. import config
         mesh = self.mesh

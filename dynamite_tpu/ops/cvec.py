@@ -2,8 +2,9 @@
 Complex vector arithmetic over stacked-real arrays.
 
 A complex vector of dimension N is stored as a real array of shape (2, N):
-row 0 = real part, row 1 = imaginary part. TPU hardware has no complex ALU,
-so this explicit representation is the native one; XLA fuses these
+row 0 = real part, row 1 = imaginary part. Every engine works on real
+planes (the sector and XOR-dense engines run real matmuls on them), so
+this explicit representation is the native one; XLA fuses these
 elementwise kernels with their neighbors.
 
 All functions are jitted and work on sharded arrays (GSPMD inserts the psum

@@ -4,15 +4,15 @@ Semi-explicit ELL-format apply engine for general subspace pairs.
 For a fixed (msc, left, right) triple, the column index of every nonzero is
 a *static* function of the row: col = s2i_right(i2s_left(row) ^ mask), and
 so is the Walsh coefficient f_m(bra). Computing them on the fly (the XLA
-engine's general path) scalarizes the combinatorial ranking on TPU —
-measured ~100x slower than the gathers themselves. This engine precomputes
+engine's general path) repeats the combinatorial ranking on every apply,
+far more work than the gathers themselves. This engine precomputes
 both once at kernel-build time, ON DEVICE (one jitted pass reusing the same
 traced index maps — no host round-trip), and the hot apply becomes a scan
 of pure gather+FMA steps:
 
     y += (fr[g] + i fi[g]) * x[:, cols[g]]      for each mask group g
 
-This is the TPU analog of the reference's explicit CSR mode (BuildPetsc,
+This is the analog of the reference's explicit CSR mode (BuildPetsc,
 bpetsc_template_2.c:57-205): a materialized matrix in ELL layout (one
 permutation-structured column block per Pauli mask group), chosen over CSR
 because every row has the same group structure. Memory: one int + one or
@@ -29,7 +29,7 @@ arguments (utils/hoist.py) — inlining them as MLIR constants would make
 compile payloads explode.
 
 The sharded variant stores only the rows each device owns (tables sharded
-over the state axis) and all-gathers x over ICI — the same communication
+over the state axis) and all-gathers x over the mesh — the same communication
 pattern as the on-the-fly sharded general path (apply.py), with the sweep
 replaced by gathers.
 """
@@ -116,7 +116,6 @@ def build_tables(plan, n_rows, real_dtype, out_shardings=None,
 
     Returns (cols, fr, fi_or_None[, conserves_bool]).
     """
-    from .apply import _iota
     from .index_maps import parity_j
 
     masks_c, signs_c, cr_c, ci_c, gids, G = chunk_groups(plan.groups)
@@ -138,7 +137,7 @@ def build_tables(plan, n_rows, real_dtype, out_shardings=None,
             first[g] = c
 
     def build():
-        rows = _iota(n_rows, idt)
+        rows = lax.broadcasted_iota(idt, (n_rows,), 0)
         if n_rows != dim_left:
             valid_row = rows < dim_left
             rows = jnp.minimum(rows, dim_left - 1)
@@ -156,8 +155,9 @@ def build_tables(plan, n_rows, real_dtype, out_shardings=None,
             bra = row_states ^ m
             w = (1 - 2 * parity_j(bra[:, None] & signs[None, :])
                  ).astype(real_dtype)
-            fr = w @ cr
-            fi = w @ ci
+            # HIGHEST: TF32 would round the coefficients to ~1e-3
+            fr = jnp.dot(w, cr, precision=lax.Precision.HIGHEST)
+            fi = jnp.dot(w, ci, precision=lax.Precision.HIGHEST)
             col, sub_valid = plan.right_map.s2i(bra)
             valid = sub_valid
             if valid_row is not None:
@@ -254,9 +254,8 @@ def make_apply(out_rows, has_fi, vary_axis=None):
     wrapper can shard them): apply(x, cols, fr[, fi]) -> y (2, out_rows).
 
     A lax.scan over group batches; each step is one (KB, rows) gather +
-    contraction. Measured on TPU the scan form matches the unrolled form
-    (both bound by gather throughput) while keeping the program size O(1)
-    in the group count.
+    contraction. The scan keeps the program size O(1) in the group
+    count.
     """
     def apply_fn(x, cols, fr, fi=None):
         dtype = x.dtype
@@ -264,25 +263,25 @@ def make_apply(out_rows, has_fi, vary_axis=None):
         if vary_axis is not None:
             # inside shard_map the carry becomes device-varying on the
             # first step; mark the initial zeros to match
-            if hasattr(lax, 'pcast'):
-                y0 = lax.pcast(y0, (vary_axis,), to='varying')
-            elif hasattr(lax, 'pvary'):
-                y0 = lax.pvary(y0, (vary_axis,))
+            y0 = lax.pcast(y0, (vary_axis,), to='varying')
+
+        # HIGHEST: below it a GPU may take the f32 products in TF32
+        # (~1e-3 relative)
+        def dot(spec, a, b):
+            return jnp.einsum(spec, a, b, precision=lax.Precision.HIGHEST)
 
         if not has_fi:
             def step(y, args):
                 c, f = args                      # (KB, rows)
                 xp = x[:, c]                     # (2, KB, rows)
-                return y + jnp.einsum('kr,pkr->pr', f, xp), None
+                return y + dot('kr,pkr->pr', f, xp), None
             xs = (cols, fr)
         else:
             def step(y, args):
                 c, f_r, f_i = args
                 xp = x[:, c]
-                sr = jnp.einsum('kr,kr->r', f_r, xp[0]) \
-                    - jnp.einsum('kr,kr->r', f_i, xp[1])
-                si = jnp.einsum('kr,kr->r', f_r, xp[1]) \
-                    + jnp.einsum('kr,kr->r', f_i, xp[0])
+                sr = dot('kr,kr->r', f_r, xp[0]) - dot('kr,kr->r', f_i, xp[1])
+                si = dot('kr,kr->r', f_r, xp[1]) + dot('kr,kr->r', f_i, xp[0])
                 return y + jnp.stack([sr, si]), None
             xs = (cols, fr, fi)
 

@@ -19,10 +19,39 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
+from ..utils.bitwise import parity as parity_np
+
 
 def parity_j(x):
     """Parity (popcount mod 2) of each integer lane."""
     return lax.population_count(x) & jnp.asarray(1, x.dtype)
+
+
+def effective_sign_mask(s, m, left, right):
+    """Reduce parity(bra & s) to parity(k & s_eff) ^ const over row indices
+    k, for XOR-mode subspace pairs.
+
+    Full: bra = k ^ m            -> s_eff = s,        const = parity(m & s)
+    Parity: bra = ((k<<1)|pb) ^ m with pb = parity(k) ^ space
+        -> s_eff = (s>>1) ^ (all-ones if s&1), folding the parity bit's
+           contribution parity(k) into the mask; const collects the m and
+           space terms.
+    Returns (s_eff, sign) with sign = +-1.
+    """
+    from .. import subspaces as sp
+    lbase = left.parent if isinstance(left, sp.XParity) else left
+    if isinstance(lbase, sp.Full):
+        s_eff = int(s)
+        const = int(parity_np(np.int64(s & m)))
+        return s_eff, 1 - 2 * const
+    if isinstance(lbase, sp.Parity):
+        nbits = lbase.L - 1
+        ones = (1 << nbits) - 1
+        s_eff = (int(s) >> 1) ^ (ones if (s & 1) else 0)
+        const = int(parity_np(np.int64((s >> 1) & (m >> 1))))
+        const ^= int(s & 1) & (lbase.space ^ (int(m) & 1))
+        return s_eff, 1 - 2 * const
+    raise TypeError('effective sign mask only defined for Full/Parity')
 
 
 class FullMap:
@@ -56,7 +85,7 @@ class SpinConserveMap:
     rank(low half). The two half-rank loops are unrolled at trace time
     (together they cost the same L-1 fused steps as a flat combinatorial
     rank — the reference's formulation, bsubspace_impl.h:191-228 — while
-    producing the layout the MXU sector engine needs)."""
+    producing the layout the sector matmul engine needs)."""
 
     def __init__(self, L, k, nchoosek):
         from .sectors import layout

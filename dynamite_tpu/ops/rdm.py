@@ -3,7 +3,7 @@ Reduced density matrices.
 
 The state, viewed as a [2]*L tensor over the spins, is transposed so the
 kept spins lead, reshaped to (2^k, 2^(L-k)), and contracted
-rho = V V^dagger — one MXU matmul on the device mesh, instead of the
+rho = V V^dagger — one matmul on the device mesh, instead of the
 reference's gather-to-rank-0 outer-product loop
 (bpetsc_template_1.c:87-165, a scalability bottleneck acknowledged in the
 reference's docs/FAQ.rst:35). For subspace states the amplitudes are first
@@ -20,6 +20,10 @@ from functools import lru_cache, partial
 import numpy as np
 import jax
 import jax.numpy as jnp
+
+# HIGHEST: below it a GPU may take the f32 products in TF32 (~1e-3
+# relative), which would blur the small eigenvalues of rho
+_mm = partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
 
 
 def _bit_perm(L, keep):
@@ -88,8 +92,8 @@ def _build_rdm_device(subspace, keep, int_dtype):
             full.reshape([2] + src_dims),
             [0] + [a + 1 for a in merged_perm]).reshape(2, 1 << k, -1)
         Vr, Vi = V[0], V[1]
-        rho_re = Vr @ Vr.T + Vi @ Vi.T
-        rho_im = Vi @ Vr.T - Vr @ Vi.T
+        rho_re = _mm(Vr, Vr.T) + _mm(Vi, Vi.T)
+        rho_im = _mm(Vi, Vr.T) - _mm(Vr, Vi.T)
         return rho_re, rho_im
 
     return rdm
@@ -154,7 +158,7 @@ def _build_rdm_spinconserve(subspace, keep, int_dtype):
     dim = C(L, k), and the largest temporary is one weight block
     (C(L/2, g) x C(L/2, k-g) at a half cut). The reference walks the same
     weight classes serially on rank 0 (bpetsc_template_1.c:87-165); here
-    each block is one MXU contraction.
+    each block is one matrix contraction.
     """
     from math import comb
     from .index_maps import device_map
@@ -188,8 +192,8 @@ def _build_rdm_spinconserve(subspace, keep, int_dtype):
             idx, _valid = smap.s2i(s)   # every s is in the subspace
             B = data[:, idx].reshape(2, n_t, n_k)
             br, bi = B[0], B[1]
-            rho_re = br.T @ br + bi.T @ bi
-            rho_im = bi.T @ br - br.T @ bi
+            rho_re = _mm(br.T, br) + _mm(bi.T, bi)
+            rho_im = _mm(bi.T, br) - _mm(br.T, bi)
             out.append((rho_re, rho_im))
         return out
 

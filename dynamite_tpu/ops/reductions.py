@@ -23,7 +23,7 @@ from jax import lax
 
 from . import msc as msc_mod
 from .index_maps import device_map, parity_j
-from .apply import _iota, TERM_CHUNK
+from .apply import TERM_CHUNK
 from ..utils.hoist import hjit
 
 # rows (columns) per outer scan step
@@ -93,7 +93,7 @@ def build_infinity_norm(msc, left, right, real_dtype, int_dtype):
 
         def outer(c, _):
             base_row = (c * C).astype(int_dtype)
-            rows = _iota(C, int_dtype) + base_row
+            rows = lax.broadcasted_iota(int_dtype, (C,), 0) + base_row
             if needs_pad:
                 in_range = rows < dim
                 rows = jnp.minimum(rows, dim - 1)
@@ -105,8 +105,8 @@ def build_infinity_norm(msc, left, right, real_dtype, int_dtype):
                 bra = kets ^ m
                 w = (1 - 2 * parity_j(bra[:, None] & signs[None, :])
                      ).astype(dtype)
-                fr = pfr + w @ cr
-                fi = pfi + w @ ci
+                fr = pfr + jnp.dot(w, cr, precision=lax.Precision.HIGHEST)
+                fi = pfi + jnp.dot(w, ci, precision=lax.Precision.HIGHEST)
                 _, valid = right_map.s2i(bra)
                 add = jnp.sqrt(fr * fr + fi * fi) * valid.astype(dtype)
                 row_sum = row_sum + jnp.where(is_last, add, 0)
@@ -163,7 +163,7 @@ def build_check_conserves(msc, left, right, real_dtype, int_dtype):
 
         def outer(c, _):
             base_col = (c * C).astype(int_dtype)
-            cols = _iota(C, int_dtype) + base_col
+            cols = lax.broadcasted_iota(int_dtype, (C,), 0) + base_col
             if needs_pad:
                 in_range = cols < dim
                 cols = jnp.minimum(cols, dim - 1)
@@ -174,8 +174,8 @@ def build_check_conserves(msc, left, right, real_dtype, int_dtype):
                 m, signs, cr, ci, is_last, t2 = args
                 w = (1 - 2 * parity_j(states[:, None] & signs[None, :])
                      ).astype(dtype)
-                fr = pfr + w @ cr
-                fi = pfi + w @ ci
+                fr = pfr + jnp.dot(w, cr, precision=lax.Precision.HIGHEST)
+                fi = pfi + jnp.dot(w, ci, precision=lax.Precision.HIGHEST)
                 active = (fr * fr + fi * fi) > t2
                 _, valid = left_map.s2i(states ^ m)
                 ok = ok & jnp.where(is_last, valid | ~active, True)

@@ -1,11 +1,10 @@
 """
-Sector-blocked MXU apply engine for SpinConserve pairs.
+Sector-blocked matmul apply engine for SpinConserve pairs.
 
 In the sector-major basis (ops/sectors.py) every symmetry sector of the
 SpinConserve subspace is a contiguous (nb x na) matrix block — rows indexed
 by the rank of the high-rest bits, columns by the rank of the low half —
-and a Pauli-string matvec decomposes into dense matrix products that run on
-the MXU:
+and a Pauli-string matvec decomposes into dense matrix products:
 
 * every mask confined to the low half contributes to ONE merged (na x na)
   column matrix A per sector:            Y_s += X_s @ A_s^T
@@ -24,10 +23,10 @@ of the sign mask).
 
 This replaces both the ranked-gather ELL path and the roll-schedule shift
 engine of earlier revisions for SpinConserve: instead of O(#classes) masked
-full-length sweeps (or gathers at a fraction of HBM speed), the hot loop is
-a handful of MXU matmuls per sector plus one diagonal stream — the
-reference's one-kernel-family bar (bpetsc_impl.c:22-163) met with the
-op the TPU is actually built for.
+full-length sweeps (or ranked gathers), the hot loop is a handful of
+matmuls per sector plus one diagonal stream — the reference's
+one-kernel-family bar (bpetsc_impl.c:22-163) met with dense matrix
+products.
 
 Matrices are deduplicated by content across sectors (the low matrices
 depend only on the sector's low-half weight, so 24 sectors share ~13
@@ -437,14 +436,13 @@ def _device_diagonal(plan, diag_terms, real_dtype):
     """(Dr, Di|None) host arrays of the diagonal field, computed on device:
     D[row] = sum_t c_t (-1)^{pc(state(row) & s_t)}."""
     import jax
-    from .apply import _iota
     from .index_maps import parity_j
 
     has_imag = any(abs(c.imag) > 0 for c, _s in diag_terms)
 
     @jax.jit
     def build():
-        rows = _iota(plan.dim_left, plan.int_dtype)
+        rows = lax.broadcasted_iota(plan.int_dtype, (plan.dim_left,), 0)
         states = plan.row_states(rows)
         dr = jnp.zeros(plan.dim_left, real_dtype)
         di = jnp.zeros(plan.dim_left, real_dtype) if has_imag else None
@@ -463,19 +461,20 @@ def _device_diagonal(plan, diag_terms, real_dtype):
     return (Dr, Di)
 
 
-def _precision():
-    """Matmul precision for the sector engine: single precision uses the
-    3-pass bf16 scheme (error comparable to fused f32 FMA); double uses
-    the strictest passes."""
+def matmul_precision():
+    """Matmul precision of the sector and XOR-dense engines.
+
+    HIGHEST in both precisions: below it, a GPU may take an f32 product in
+    TF32 (a 10-bit mantissa, ~1e-3 relative), which stalls an f32 Lanczos
+    residual far above the solver tolerances. ``config.sector_precision``
+    ('default' | 'high' | 'highest') overrides it for measurements."""
     from .. import config
     name = getattr(config, 'sector_precision', None)
     if name is not None:
         return {'default': lax.Precision.DEFAULT,
                 'high': lax.Precision.HIGH,
                 'highest': lax.Precision.HIGHEST}[name]
-    return (lax.Precision.HIGHEST
-            if np.dtype(config.real_dtype).itemsize == 8
-            else lax.Precision.HIGH)
+    return lax.Precision.HIGHEST
 
 
 def build_sector_apply(plan, left, right):
@@ -497,7 +496,7 @@ def build_sector_apply(plan, left, right):
     base_off = int(lay.off[secs[0]])
     offs = [int(lay.off[s]) - base_off for s in secs]
     shapes = [(int(lay.nb[s]), int(lay.na[s])) for s in secs]
-    prec = _precision()
+    prec = matmul_precision()
 
     col_channels = [
         (sp.sec_index[si], sp.sec_index[so],
@@ -535,10 +534,9 @@ def build_sector_apply(plan, left, right):
     # channels sharing the same (deduplicated) matrices — e.g. the merged
     # low-half A matrix, identical for every sector of a given low weight,
     # or a cross family's M across the two top-spin copies — run as ONE
-    # matmul over their concatenated source rows. The per-matmul dispatch
-    # floor (~18 us/channel measured at L=24) dominates the sector engine
-    # at chain-model channel counts, so halving the matmul count is a
-    # direct win.
+    # matmul over their concatenated source rows. At chain-model channel
+    # counts each matmul is small, so the fixed cost per matmul dominates
+    # and halving the matmul count is a direct win.
     col_groups = {}      # matrix identity -> group index
     groups = []          # [{'members': [(si, so, bidx, W)], 'Mr', 'Mi'}]
     chan_slot = []       # per col channel: (group id, member rank)
@@ -557,9 +555,9 @@ def build_sector_apply(plan, left, right):
     # channels grouped by output sector: the apply finalizes one output
     # block at a time through a dynamic_update_slice chain, so XLA cannot
     # keep hundreds of sector-sized channel outputs live simultaneously
-    # (unordered accumulation OOMed at 16.3 GB on the 450-channel 27-site
-    # kagome, dim 2.0e7 — the per-block peak is a handful of blocks plus
-    # the pending slices of in-flight batched groups)
+    # (unordered accumulation ran out of device memory on the 450-channel
+    # 27-site kagome, dim 2.0e7 — the per-block peak is a handful of blocks
+    # plus the pending slices of in-flight batched groups)
     by_out = {o: ([], []) for o in range(len(secs))}
     for ci, ch in enumerate(col_channels):
         by_out[ch[1]][0].append(chan_slot[ci])

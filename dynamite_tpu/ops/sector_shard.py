@@ -141,11 +141,7 @@ def _pvary(x, axis):
     carries start as invariant zeros but become varying on the first
     update, which newer jax's shard_map type checker rejects without the
     annotation)."""
-    if hasattr(lax, 'pcast'):
-        return lax.pcast(x, (axis,), to='varying')
-    if hasattr(lax, 'pvary'):  # pragma: no cover - older spelling
-        return lax.pvary(x, (axis,))
-    return x  # pragma: no cover
+    return lax.pcast(x, (axis,), to='varying')
 
 
 def _ring(x, axis, nd, body, init):
@@ -170,7 +166,7 @@ def build_sector_sharded(plan, left, right, mesh):
     from .. import config
     from . import ell
     from .sector_apply import (SectorPlan, sector_supported,
-                               table_bytes_estimate, _precision)
+                               table_bytes_estimate, matmul_precision)
     from ..parallel.mesh import storage_dim, AXIS
 
     if not sector_supported(plan, left, right):
@@ -187,7 +183,7 @@ def build_sector_sharded(plan, left, right, mesh):
     sdim = storage_dim(dim, mesh)
     local_can = sdim // nd
     int_dtype = plan.int_dtype
-    prec = _precision()
+    prec = matmul_precision()
     axis = AXIS
     S = len(alay.nb)
 

@@ -3,10 +3,9 @@ XOR-blocked dense-matmul engine for many-mask XOR-mode operators (SYK).
 
 Operators like SYK carry thousands of distinct Pauli masks; the reference
 streams them as explicit CSR (bpetsc_template_2.c:57-205) and earlier
-revisions here used a gather-table scan — both memory-bound on an index
-stream, which a TPU serves at a tiny fraction of its matmul throughput.
+revisions here used a gather-table scan — both bound by an index stream.
 
-This engine restructures the matvec into dense MXU work.  On an XOR-mode
+This engine restructures the matvec into dense matmuls.  On an XOR-mode
 pair (Full/Parity), a term acts in index space as
 
     y[j] += c * (-1)^{pc(j & s)} * x[j ^ m].
@@ -24,20 +23,21 @@ the channel's terms with a_in = a_out ^ m_low.  Keying on the coefficient
 type keeps every channel SINGLE-table: a real-type channel multiplies both
 planes by B; an imaginary-type channel multiplies and rotates the planes
 (yr -= B xi, yi += B xr).  Compared to carrying (real, imag) table pairs on
-every channel this halves both the HBM table stream and the MXU work of
+every channel this halves both the table stream and the matmul work of
 pure channels — on SYK N=32 at La=9, 2.29 GB -> 1.54 GB and 378 of 1093
 (mh, sh) channels were mixed-type pairs.
 
 The row permutation is a cheap contiguous-row gather; the column action is
 one (2*nh, na) @ (na, na) matmul per channel — the re/im planes are folded
-into the ROW axis so the MXU sees full 128-row tiles even when nh < 128.
-The apply is a lax.scan per type class with uniform shapes — one stacked
-(C, na, na) matrix table streamed from HBM, one (C, nh) row index table,
-one (C, nh) row sign table — so program size is O(1) in the term count and
-the FLOPs land on the systolic array.
+into the ROW axis, so each product has twice the rows even when nh is
+small. The apply is a lax.scan per type class with uniform shapes — one
+stacked (C, na, na) matrix table streamed from device memory, one (C, nh)
+row index table, one (C, nh) row sign table — so program size is O(1) in
+the term count.
 
-La is chosen to minimize a simple cost model (matmul passes + table
-stream + per-step dispatch) under the table budget (config.ell_budget).
+La is chosen to minimize the bytes one apply streams (the channel tables
+plus the gathered source rows) under the table budget (config.ell_budget);
+see pick_split.
 """
 
 import numpy as np
@@ -48,12 +48,6 @@ from ..utils.bitwise import parity
 
 MIN_DIM = 1 << 12     # below this, launch overhead dominates any engine
 CHANNEL_BATCH = 64    # channels per scan step (amortizes step dispatch)
-# La cost-model constants calibrated on TPU v5e (SYK N=32 sweep, round 5):
-# per-step cost ~25 us; effective f32 matmul rate scales with the channel
-# width na (small matmuls underfill the MXU pipeline)
-_MXU_FLOPS = 60e12
-_HBM_BPS = 8e11
-_STEP_S = 25e-6
 _COEFF_TOL = 0.0         # exact: a term is real xor imaginary
 
 
@@ -70,25 +64,33 @@ def _typed_channels_at(groups, eff, La):
     return keys
 
 
+def split_range(nbits):
+    """The candidate splits. Below nbits // 2 - 3 the gathered rows alone
+    stream more bytes than the minimum (SYK N=32-40)."""
+    return range(max(1, nbits // 2 - 3), nbits)
+
+
 def pick_split(groups, eff, nbits, budget, coeff_bytes):
-    """Choose La minimizing modeled apply time under the table budget."""
+    """Choose La minimizing the bytes one apply streams: the channel tables
+    (C * na^2 coefficients) plus the gathered source rows (C channels of
+    (2, nh, na)). Growing La merges channels (C falls) but widens the
+    tables, so the two streams trade off; no device rate enters. Measured
+    on an H100 (PERF.md), this minimum is the fastest La for SYK N=32 and
+    N=36; at N=40 it picks La=9 where La=8, with 29% fewer matmul FLOPs,
+    is 1.19x faster (config.xor_dense_la overrides the choice).
+    Returns (bytes, La, C, table bytes), or None when no split fits the
+    table budget."""
     best = None
-    for La in range(max(1, nbits // 2 - 3), nbits):
+    for La in split_range(nbits):
         na = 1 << La
         nh = 1 << (nbits - La)
         C = len(_typed_channels_at(groups, eff, La))
         table = C * na * na * coeff_bytes
         if table > budget:
             continue
-        # planes fold into rows: (2*nh, na) @ (na, na), padded to the
-        # (128, 128) f32 MXU tile; narrow channels underfill the MXU
-        flops = C * max(2 * nh, 128) * max(na, 128) * na * 2
-        mxu_eff = na / (na + 384)
-        t = (flops / (_MXU_FLOPS * mxu_eff)
-             + (table + C * nh * na * 8) / _HBM_BPS
-             + (C / CHANNEL_BATCH) * _STEP_S)
-        if best is None or t < best[0]:
-            best = (t, La, C, table)
+        streamed = table + C * 2 * nh * na * coeff_bytes
+        if best is None or streamed < best[0]:
+            best = (streamed, La, C, table)
     return best
 
 
@@ -99,7 +101,7 @@ def xor_dense_supported(plan):
     if not plan.xor_mode or plan.dim_left != plan.dim_right:
         return False
     if not plan.use_scan:
-        return False  # few-mask operators keep the Pallas / fused paths
+        return False  # few-mask operators keep the fused sweep paths
     if plan.dim_right < MIN_DIM:
         return False
     return (plan.dim_right & (plan.dim_right - 1)) == 0
@@ -110,8 +112,8 @@ def _class_scan(Ms, rowidx, wh, na, nh, prec, imag_type, batch):
     (C_pad, nh), (C_pad, nh) reshaped into (S, KB, ...) step batches.
 
     Each step is ONE batched gather + ONE batched dot_general over its KB
-    channels (an unrolled per-channel inner loop cost ~4x the ops per step
-    and measurably more dispatch time on hardware)."""
+    channels (an unrolled per-channel inner loop cost ~4x the ops per
+    step)."""
     C_pad = Ms.shape[0]
     S = C_pad // batch
     Ms_d = jnp.asarray(Ms.reshape(S, batch, na, na))
@@ -125,7 +127,7 @@ def _class_scan(Ms, rowidx, wh, na, nh, prec, imag_type, batch):
             src = jnp.take(xv, ridx.reshape(-1), axis=1) \
                 .reshape(2, batch, nh, na)
             # batch over channels; the (plane, row) free dims fold into
-            # full MXU row tiles even when nh < 128
+            # the rows of one product
             out = lax.dot_general(
                 src, M.astype(dtype),
                 (((3,), (2,)), ((1,), (0,))),
@@ -151,7 +153,8 @@ def build_xor_dense(plan, left, right):
     (2, dim) stacked-real state through the typed channel scans."""
     from .. import config
     from . import ell
-    from .pallas_apply import _effective_sign_mask
+    from .index_maps import effective_sign_mask
+    from .sector_apply import matmul_precision
 
     if not xor_dense_supported(plan):
         return None, None
@@ -164,7 +167,7 @@ def build_xor_dense(plan, left, right):
     eff = []
     try:
         for m, pm, signs, coeffs in plan.groups:
-            eff.append([_effective_sign_mask(int(s), int(m), left, right)
+            eff.append([effective_sign_mask(int(s), int(m), left, right)
                         for s in signs])
     except TypeError:
         return None, None
@@ -172,7 +175,7 @@ def build_xor_dense(plan, left, right):
     pick = pick_split(plan.groups, eff, nbits, ell.ell_budget(), cb)
     if pick is None:
         return None, None
-    _t, La, C, _table = pick
+    _bytes, La, C, _table = pick
     # manual override for tuning experiments (config.xor_dense_la)
     La_cfg = getattr(config, 'xor_dense_la', None)
     if La_cfg is not None:
@@ -203,6 +206,7 @@ def build_xor_dense(plan, left, right):
                 B[a, cols] += part * w
 
     h = np.arange(nh, dtype=np.int64)
+    prec = matmul_precision()
     runs = []
     table_bytes = 0
     for typ in (0, 1):
@@ -220,7 +224,6 @@ def build_xor_dense(plan, left, right):
             rowidx[i] = (h ^ k[0]).astype(np.int32)
             wh[i] = 1.0 - 2.0 * parity(h & k[1])
         table_bytes += Ms.nbytes + rowidx.nbytes + wh.nbytes
-        prec = lax.Precision.HIGHEST if cb == 8 else lax.Precision.HIGH
         runs.append(_class_scan(Ms, rowidx, wh, na, nh, prec,
                                 imag_type=bool(typ), batch=KB))
 

@@ -6,7 +6,7 @@ bits of the state index select the device, exactly the bit-slicing trick the
 reference uses to map state indices to MPI ranks
 (reference: bpetsc_template_2.c:781-783). Each Pauli mask whose support
 touches those high bits induces a pairwise device permutation
-(dst = me ^ mask_high), implemented with lax.ppermute over ICI.
+(dst = me ^ mask_high), implemented with lax.ppermute.
 """
 
 import numpy as np

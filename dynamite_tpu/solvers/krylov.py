@@ -12,7 +12,7 @@ SLEPc's Krylov accuracy (reference north star: eigenvalues to 1e-10).
 
 Everything runs as one traced program: the Krylov basis V lives on device as
 a (m+1, 2, dim) stacked-real array (sharded over dim under GSPMD), inner
-products are matmuls against the basis (MXU-friendly), and the iteration is
+products are matmuls against the basis, and the iteration is
 a lax.fori_loop — no host round-trips inside the factorization.
 """
 
@@ -60,27 +60,16 @@ def _basis_dots(V, w, upto_mask):
     """Complex inner products <V_k | w> for all k, masked beyond the active
     basis size. V: (m, 2, dim); w: (2, dim). Returns (re, im) of shape (m,).
 
-    Formulation note (TPU layouts): both operands contract on their LAST
-    axis and no operand or result has a narrow (<8) minormost dimension on
-    the big axis. The plane-sliced `V[:, 0, :] @ w[0]` form lowered through
-    (dim, 1)-shaped operands whose (8, 128)-tiled layouts padded a state
-    vector 128x (measured 6.6 GB of temps at dim 2^24, m=40; this form
-    measures zero)."""
+    Both operands contract on their LAST axis, as one (2m, dim) x (2, dim)
+    product: no (dim, 1)-shaped operand or reshaped copy of the basis is
+    formed."""
     m = V.shape[0]
     Vv = V.reshape(m * 2, V.shape[-1])
-    if V.dtype == jnp.float64:
-        # TPU's emulated f64 dot_general loses precision with contraction
-        # length (measured on v5e: 2.4e-15 rel at K=2^16 but 4.5e-10 at
-        # K=705432 and 1.7e-7 at K=2^21); the broadcast-multiply+reduce
-        # lowering stays at ~1e-14 independent of K, and for these
-        # bandwidth-bound dots the MXU brings nothing anyway
-        D = jnp.sum(Vv[:, None, :] * w[None, :, :], axis=-1)
-    else:
-        # HIGHEST: the default single-pass bf16 truncates the operands to
-        # 8 mantissa bits, and orthogonalization against a ~1e-3-accurate
-        # projection visibly drifts the evolved state's norm
-        D = lax.dot_general(Vv, w, (((1,), (1,)), ((), ())),
-                            precision=lax.Precision.HIGHEST)
+    # HIGHEST: below it a GPU may take f32 products in TF32 (~1e-3
+    # relative), and orthogonalization against such a projection visibly
+    # drifts the evolved state's norm
+    D = lax.dot_general(Vv, w, (((1,), (1,)), ((), ())),
+                        precision=lax.Precision.HIGHEST)
     D = D.reshape(m, 2, 2)
     re = D[:, 0, 0] + D[:, 1, 1]
     im = D[:, 0, 1] - D[:, 1, 0]
@@ -91,9 +80,8 @@ def _basis_combine(V, cr, ci):
     """sum_k (cr_k + i ci_k) V_k. Returns (2, dim).
 
     The (2, 2, m) coefficient tensor contracts over (q, k) while the basis
-    keeps its native (m, 2, dim) layout — no reshape of V (an in-program
-    reshape of the basis materializes a sublane-padded flat copy, measured
-    6.4 GB at dim 2^24) and no narrow-minormost intermediate."""
+    keeps its native (m, 2, dim) layout — no in-program reshape of V, which
+    could materialize a copy of the whole basis."""
     C = jnp.stack([jnp.stack([cr, -ci]), jnp.stack([ci, cr])])
     return jnp.einsum('pqk,kqd->pd', C, V,
                       precision=lax.Precision.HIGHEST)
@@ -209,10 +197,8 @@ def recombine_basis(V, C):
     """New basis rows Y_p = sum_k C[p, k] V[k] (real coefficients, e.g. the
     eigenvectors of the tridiagonal projection in a thick restart).
 
-    Contracts k against the basis's native (m, 2, dim) layout. (An earlier
-    revision flattened V to (m1, 2*dim) first; on TPU that reshape
-    materializes a sublane-padded copy of the whole basis — see
-    docs/performance.md on the (8, 128)-tiling layout pathology.)"""
+    Contracts k against the basis's native (m, 2, dim) layout, so no
+    flattened copy of the basis is formed."""
     return jnp.einsum('pk,kqd->pqd', C, V,
                       precision=lax.Precision.HIGHEST)
 
@@ -232,8 +218,7 @@ def lanczos_step(matvec, w, m):
     """One fused expmv substep worth of device work: normalize w, run the
     m-step Lanczos factorization, and compute ||A v_m|| for the Expokit
     second-order error term — everything the host needs in ONE round trip
-    (the split version cost three device syncs per substep, each a DCN
-    round trip on a pod)."""
+    (the split version cost three device syncs per substep)."""
     beta0 = _norm(w)
     v0 = w / jnp.where(beta0 > 0, beta0, 1)
     V, alpha, beta = lanczos(matvec, v0, m)

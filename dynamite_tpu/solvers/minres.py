@@ -4,7 +4,7 @@ the shift-invert ``target=`` eigensolver.
 
 The reference implements shift-invert with a MUMPS sparse LU through SLEPc's
 ST.SINVERT (reference: computations.py:211-224) and *refuses* it for
-matrix-free operators. On TPU everything is matrix-free, so the inverse is
+matrix-free operators. Everything here is matrix-free, so the inverse is
 applied iteratively: MINRES needs only matvecs, handles the indefinite
 operator (sigma sits inside the spectrum), and runs as one fused device
 program (lax.while_loop with an early-exit residual test — no host

@@ -3,9 +3,9 @@ Distributed state vectors.
 
 A State's data lives on the device mesh as a real array of shape (2, dim) —
 row 0 the real part, row 1 the imaginary part — sharded along the state axis.
-TPUs have no complex ALU (and this backend lacks complex-reduction lowering),
-so explicit re/im arithmetic *is* the TPU-native representation; see
-:mod:`dynamite_tpu.ops.cvec` for the arithmetic kernels.
+The engines all work on real planes, so explicit re/im arithmetic is the
+native representation; see :mod:`dynamite_tpu.ops.cvec` for the arithmetic
+kernels.
 
 Reference semantics: src/dynamite/states.py (PETSc.Vec wrapper).
 """
@@ -251,7 +251,7 @@ class State:
 
         ``to_all`` is accepted for reference API parity; under jax every host
         process can fetch the full array (multi-host sharded arrays are
-        gathered over DCN first).
+        gathered across hosts first).
         """
         self.assert_initialized()
         data = self.data

@@ -117,7 +117,7 @@ def spectral_site_order(n_sites, edges):
     bit half — recursive spectral (Fiedler-vector) bisection of the
     interaction graph.
 
-    The sector MXU engine (ops/sector_apply.py) merges every interaction
+    The sector engine (ops/sector_apply.py) merges every interaction
     bond confined to the low bit half into shared per-sector column
     matrices and every bond confined to the high bits into shared row
     matrices, while each bond CROSSING the half boundary spawns its own

@@ -1,7 +1,7 @@
 """
 Input validation helpers (reference analog: src/dynamite/validate.py).
 
-The TPU build always uses 64-bit masks host-side, so the only hard limit is
+This package always uses 64-bit masks host-side, so the only hard limit is
 L <= 63. Device index dtype (int32 vs int64) is chosen per-operator at trace
 time.
 """
@@ -55,7 +55,7 @@ def msc(value):
 
 def shell(value):
     if not isinstance(value, bool):
-        raise ValueError('shell must be a bool (note: on TPU all operators '
+        raise ValueError('shell must be a bool (note: all operators '
                          'are matrix-free, so this flag only controls the '
                          'debugging CSR cache)')
     return value

@@ -3,7 +3,7 @@ Floquet heating: repeatedly evolve under a long-range Hamiltonian for period
 T and apply a global pi-pulse X, tracking the effective energy, half-chain
 entanglement entropy, and per-site <Sz> — with checkpoint/resume.
 
-TPU-native port of the reference study (reference:
+JAX port of the reference study (reference:
 examples/scripts/floquet/run_floquet.py), including its
 checkpoint-every-N-cycles + resume-by-glob pattern.
 

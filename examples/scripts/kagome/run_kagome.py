@@ -133,7 +133,7 @@ def parse_args(argv=None):
     p.add_argument('--precision', choices=('single', 'double'),
                    default=None,
                    help="override config.precision ('single' is the fast "
-                        'path on TPU; see docs/performance.md)')
+                        'path; see docs/performance.md)')
     p.add_argument('--tol', type=float, default=None,
                    help='residual tolerance (default: precision-dependent)')
     p.add_argument('--ncv', type=int, default=None,

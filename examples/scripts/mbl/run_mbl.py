@@ -3,7 +3,7 @@ Many-body localization phase diagram: disorder-averaged entanglement entropy
 and adjacent-gap ratio of mid-spectrum eigenstates of the random-field
 Heisenberg chain, in the half-filling SpinConserve sector.
 
-TPU-native port of the reference study (reference:
+JAX port of the reference study (reference:
 examples/scripts/MBL/run_mbl.py). Interior eigenpairs come from the
 spectral-fold + Rayleigh-Ritz 'target' mode instead of MUMPS shift-invert.
 

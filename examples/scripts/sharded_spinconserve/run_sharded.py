@@ -6,9 +6,9 @@ This is the configuration the reference's multi-node story is built around
 (L=30 half filling, dim C(30,15) = 155,117,520 — the BASELINE multi-chip
 flagship; reference bar: the curated L=30 test set that takes ~4.5 h on a
 CPU node, tests/integration/test_sets/L30.tests:2-3). On real hardware the
-mesh is the TPU slice; with --virtual the same program runs on virtual CPU
-devices to validate the sharding (how the driver's dryrun and the test
-suite exercise multi-chip paths without a pod).
+mesh spans the host's GPUs; with --virtual the same program runs on virtual
+CPU devices to validate the sharding (how the test suite exercises
+multi-device paths without GPUs).
 
 Example (virtual 8-device mesh, one Lanczos step at L=30):
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \

@@ -3,7 +3,7 @@ SYK out-of-time-order correlators: imaginary-time Krylov evolution to
 prepare thermal states, then real-time evolutions sandwiching Majorana
 operators to compute C(t) = 2 Re<psi| W(t) V W(t) V |psi> + 1/2.
 
-TPU-native port of the reference study (reference:
+JAX port of the reference study (reference:
 examples/scripts/SYK/run_syk.py), exercising cross-sector subspace pairs
 (the Majoranas map between the even and odd Parity sectors).
 

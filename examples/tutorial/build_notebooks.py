@@ -46,7 +46,7 @@ NOTEBOOKS['0-Welcome.ipynb'] = [
 # Welcome to the dynamite_tpu tutorial
 
 `dynamite_tpu` computes the dynamics and eigenstates of quantum many-body
-spin-1/2 systems at large scale, on TPUs (and anywhere JAX runs): symbolic
+spin-1/2 systems at large scale, on NVIDIA GPUs (and anywhere JAX runs): symbolic
 Pauli-string Hamiltonians, Krylov time evolution `exp(-iHt)|psi>`, Lanczos
 eigensolving, symmetry subspaces, and state vectors sharded across a device
 mesh.
@@ -62,7 +62,7 @@ The notebooks in this directory:
 
 Every notebook runs as-is on CPUs (they force the CPU backend with a small
 virtual device mesh, so the distributed code paths are exercised without
-hardware). On a real TPU, remove the `JAX_PLATFORMS` override and set
+hardware). On a GPU, remove the `JAX_PLATFORMS` override and set
 `config.precision = 'single'` for the fast path.
 """),
 ]
@@ -453,11 +453,12 @@ print('terms:', H.nterms)
 print('operator memory estimate (GB):', H.estimate_memory())
 print('with ncv=30 Krylov workspace (GB):', H.estimate_memory(ncv=30))"""),
 ('markdown', """\
-Under the hood, three compute engines serve the matrix-free matvec, chosen
-automatically: a hand-written Pallas TPU kernel for XOR-structured
-subspace pairs, a precomputed gather ("ELL") engine for general subspaces
+Under the hood, the compute engines serve the matrix-free matvec, chosen
+automatically: a hand-written GPU kernel for XOR-structured
+subspace pairs, dense-matmul engines for SpinConserve and SYK, a
+precomputed gather ("ELL") engine for general subspaces
 and many-term operators like SYK, and an XLA term-sweep fallback. See
-`docs/performance.md` for measured numbers.
+`docs/performance.md` for how each engine works.
 """),
 ('code', """\
 from dynamite_tpu.subspaces import Parity

@@ -169,7 +169,7 @@ def test_expectation():
 
 
 def test_sector_engine_mbl(monkeypatch):
-    """The sector-blocked MXU engine must serve SpinConserve pairs and
+    """The sector-blocked matmul engine must serve SpinConserve pairs and
     agree with the dense oracle (the hot path of the spinconserve bench
     stage)."""
     from dynamite_tpu.subspaces import SpinConserve

@@ -1,6 +1,6 @@
 """Production (single-precision f32) and extreme (L > 31, int64) configs.
 
-The TPU production mode runs f32 with a looser tolerance ladder; the
+Single precision runs f32 with a looser tolerance ladder; the
 reference's 64-bit build policy (reference validate.py:6-18, bbuild.pyx)
 maps here to precision='double' + int64 index maps for L > 31. These run
 in subprocesses because jax_enable_x64 is a process-global switch that the

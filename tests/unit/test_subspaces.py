@@ -73,7 +73,7 @@ class TestSpinConserve:
         """States are emitted sector-major: primarily by the top spin, then
         by the Hamming weight of the high rest, then by value within each
         half (ops/sectors.py) — the ordering that makes every sector a
-        contiguous matrix block for the MXU engine."""
+        contiguous matrix block for the sector matmul engine."""
         L, k = 5, 2
         s = SpinConserve(L, k)
         La = L // 2
